@@ -2,7 +2,7 @@
 mesh's "data" axis, each chip running the batched fused kernels on its
 local frames -- zero collectives (tiles never communicate).
 
-    JAX_PLATFORMS=cpu JAX_PLATFORM_NAME=cpu \
+    JAX_PLATFORMS=cpu \
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/mesh_streams.py
 """
@@ -16,9 +16,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
-from gpu_video_codec_tpu.parallel import MeshResidentDeblocker, make_mesh
-from gpu_video_codec_tpu.utils.yuv import (
+from gpu_video_codec_jax.models.pipeline import DeblockPipeline
+from gpu_video_codec_jax.parallel import MeshResidentDeblocker, make_mesh
+from gpu_video_codec_jax.utils.yuv import (
     planes_from_yv12_bytes, yv12_bytes_from_planes,
 )
 

@@ -1,14 +1,14 @@
 """Multi-stream deblocking: N concurrent YV12 streams zipped into per-step
 packed batches, one H2D DMA per step, filtered across the device mesh and
-returned per stream (the TPU-native scaling story for the reference's
-hypothetical multi-stream usage; parallel/multistream.py).
+returned per stream (the scaling story for the reference's hypothetical
+multi-stream usage; parallel/multistream.py).
 
 With the stream count equal to the device count (as here) the
 frames-parallel fast path engages: whole frames shard over the flattened
 mesh and each chip runs the fused-relayout packed formulation on its
 local batch -- zero steady-state collectives.
 
-    JAX_PLATFORMS=cpu JAX_PLATFORM_NAME=cpu \
+    JAX_PLATFORMS=cpu \
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/multi_stream.py
 """
@@ -22,10 +22,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.parallel import MultiStreamDeblocker, make_mesh
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import (
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.parallel import MultiStreamDeblocker, make_mesh
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import (
     planes_from_yv12_bytes, yv12_bytes_from_planes,
 )
 

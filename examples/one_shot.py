@@ -1,6 +1,6 @@
 """Simplest API: filter one YV12 frame with any backend.
 
-    JAX_PLATFORMS=cpu JAX_PLATFORM_NAME=cpu python examples/one_shot.py
+    JAX_PLATFORMS=cpu python examples/one_shot.py
 """
 
 import os
@@ -10,8 +10,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import gpu_video_codec_tpu as gvc
-from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
+import gpu_video_codec_jax as gvc
+from gpu_video_codec_jax.models.pipeline import DeblockPipeline
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INPUT = os.path.join(HERE, "testdata", "mother-daughter_352x288_yv12.yuv")

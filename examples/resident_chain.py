@@ -1,9 +1,9 @@
 """Device-resident pipelines: frames stay on device in the canonical
 tile-planes layout between stages, so each deblock step costs ONLY the
-fused kernels (28.6 us at 1080p on a v5e; docs/PERF.md).  Also shows frame
+fused kernels (PERF.md has the time on an H100).  Also shows frame
 batching -- N frames per kernel launch.
 
-    JAX_PLATFORMS=cpu JAX_PLATFORM_NAME=cpu python examples/resident_chain.py
+    JAX_PLATFORMS=cpu python examples/resident_chain.py
 """
 
 import os
@@ -13,9 +13,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
-from gpu_video_codec_tpu.models.resident import ResidentDeblocker
-from gpu_video_codec_tpu.utils.yuv import (
+from gpu_video_codec_jax.models.pipeline import DeblockPipeline
+from gpu_video_codec_jax.models.resident import ResidentDeblocker
+from gpu_video_codec_jax.utils.yuv import (
     planes_from_yv12_bytes, yv12_bytes_from_planes,
 )
 

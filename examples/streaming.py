@@ -1,7 +1,7 @@
 """Host-fed streaming: packed YV12 buffers in, filtered buffers out, with
 H2D copy overlapped under the kernels (`depth` frames in flight).
 
-    JAX_PLATFORMS=cpu JAX_PLATFORM_NAME=cpu python examples/streaming.py
+    JAX_PLATFORMS=cpu python examples/streaming.py
 """
 
 import os
@@ -11,9 +11,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
-from gpu_video_codec_tpu.models.streaming import StreamingDeblocker
-from gpu_video_codec_tpu.utils.yuv import (
+from gpu_video_codec_jax.models.pipeline import DeblockPipeline
+from gpu_video_codec_jax.models.streaming import StreamingDeblocker
+from gpu_video_codec_jax.utils.yuv import (
     planes_from_yv12_bytes, yv12_bytes_from_planes,
 )
 

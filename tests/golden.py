@@ -2,7 +2,7 @@
 implementation lives in the package so it can double as the reference CPU
 backend)."""
 
-from gpu_video_codec_tpu.models.golden import (  # noqa: F401
+from gpu_video_codec_jax.models.golden import (  # noqa: F401
     apply_normal_filter,
     apply_strong_filter,
     check_local_adaptivity,

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import FramePlanes, extend_plane
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.models.pipeline import DeblockPipeline
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import FramePlanes, extend_plane
 
 
 def _frame(rng, w, h):

@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import FramePlanes, extend_plane, read_yv12
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.models.pipeline import DeblockPipeline
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import FramePlanes, extend_plane, read_yv12
 
 
 def _assert_frames_equal(a: FramePlanes, b: FramePlanes, what=""):
@@ -99,9 +99,9 @@ def test_tile_independence(rng):
     import jax
     import jax.numpy as jnp
 
-    from gpu_video_codec_tpu.ops.deblock import deblock_tiles
-    from gpu_video_codec_tpu.utils.bs import luma_segment_maps
-    from gpu_video_codec_tpu.utils.tiles import plane_to_tiles, tiles_to_plane
+    from gpu_video_codec_jax.ops.deblock import deblock_tiles
+    from gpu_video_codec_jax.utils.bs import luma_segment_maps
+    from gpu_video_codec_jax.utils.tiles import plane_to_tiles, tiles_to_plane
 
     run = jax.jit(lambda t, m: deblock_tiles(t, *m, 32, 4))
 

@@ -4,7 +4,7 @@ segment lookups (incl. quirks Q2/Q4), and the injection API."""
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.utils.bs import (
+from gpu_video_codec_jax.utils.bs import (
     BoundaryStrength,
     chroma_segment_maps,
     luma_segment_maps,
@@ -95,9 +95,9 @@ def test_minimal_8px_frame_does_not_crash():
     vectorized lookup used to IndexError on empty arrays)."""
     import numpy as np
 
-    from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-    from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
-    from gpu_video_codec_tpu.utils.yuv import FramePlanes, extend_plane
+    from gpu_video_codec_jax.models.golden import deblock_frame_golden
+    from gpu_video_codec_jax.models.pipeline import DeblockPipeline
+    from gpu_video_codec_jax.utils.yuv import FramePlanes, extend_plane
 
     rng = np.random.default_rng(3)
     frame = FramePlanes(
@@ -120,7 +120,7 @@ def test_device_side_map_derivation_matches_host(rng):
     """segment_bs_maps_device (jnp, in-graph derivation) == host numpy maps."""
     import numpy as np
 
-    from gpu_video_codec_tpu.utils.bs import (
+    from gpu_video_codec_jax.utils.bs import (
         chroma_segment_maps, luma_segment_maps, segment_bs_maps_device,
     )
 

@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.cli import main
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import read_yv12, yv12_bytes_from_planes
+from gpu_video_codec_jax.cli import main
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import read_yv12, yv12_bytes_from_planes
 
 
 def test_cli_roundtrip(tmp_path, testdata_dir, capsys):
@@ -29,7 +29,7 @@ def test_cli_roundtrip(tmp_path, testdata_dir, capsys):
 
 
 def test_cli_native_backend(tmp_path, testdata_dir, capsys):
-    from gpu_video_codec_tpu.runtime import native
+    from gpu_video_codec_jax.runtime import native
 
     if not native.available():
         pytest.skip("no native toolchain")
@@ -88,7 +88,7 @@ def test_cli_multiframe_stream(tmp_path, testdata_dir, capsys):
 
 
 def test_cli_bench_native(tmp_path, testdata_dir, capsys):
-    from gpu_video_codec_tpu.runtime import native
+    from gpu_video_codec_jax.runtime import native
 
     if not native.available():
         pytest.skip("no native toolchain")
@@ -159,7 +159,7 @@ def test_cli_batched_resident_mode(tmp_path, rng, capsys):
     res = json.loads(capsys.readouterr().out)
     assert res["frames"] == nf and res["mode"] == "resident" and res["batch"] == 2
     got = np.fromfile(out, np.uint8).reshape(nf, frame_bytes)
-    from gpu_video_codec_tpu.utils.yuv import planes_from_yv12_bytes
+    from gpu_video_codec_jax.utils.yuv import planes_from_yv12_bytes
 
     for i, raw in enumerate(raws):
         frame = planes_from_yv12_bytes(raw.tobytes(), w, h)

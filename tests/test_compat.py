@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.compat import ReadYuvFrame
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import read_yv12, yv12_bytes_from_planes
+from gpu_video_codec_jax.compat import ReadYuvFrame
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import read_yv12, yv12_bytes_from_planes
 
 
 def test_reference_flow(tmp_path, testdata_dir):
@@ -54,8 +54,8 @@ def test_ctor_validation(tmp_path):
 
 
 def test_execute_cpu_parity(tmp_path, testdata_dir):
-    from gpu_video_codec_tpu.compat import ExecuteCpu
-    from gpu_video_codec_tpu.runtime import native
+    from gpu_video_codec_jax.compat import ExecuteCpu
+    from gpu_video_codec_jax.runtime import native
 
     if not native.available():
         pytest.skip("no native toolchain")
@@ -70,12 +70,12 @@ def test_execute_cpu_parity(tmp_path, testdata_dir):
         assert f.read() == yv12_bytes_from_planes(gold)
 
 
-def test_execute_tpu_parity(tmp_path, testdata_dir):
-    from gpu_video_codec_tpu.compat import ExecuteTpu
+def test_execute_gpu_parity(tmp_path, testdata_dir):
+    from gpu_video_codec_jax.compat import ExecuteGpu
 
     inp = os.path.join(testdata_dir, "image1_352x288_yv12.yuv")
     out = str(tmp_path / "out.yuv")
-    t = ExecuteTpu(inp, out, 352, 288, 35)
+    t = ExecuteGpu(inp, out, 352, 288, 35)
     # total_s is a measured synchronous put->filter->get wall loop (not a sum
     # of the separately-timed parts); all three brackets must be real positive
     # measurements.  No ordering assertion: on CPU the single-reps sync loop
@@ -88,8 +88,8 @@ def test_execute_tpu_parity(tmp_path, testdata_dir):
         assert f.read() == yv12_bytes_from_planes(gold)
 
 
-def test_get_tpu_device_info():
-    from gpu_video_codec_tpu.compat import GetTpuDeviceInfo
+def test_get_gpu_device_info():
+    from gpu_video_codec_jax.compat import GetGpuDeviceInfo
 
-    info = GetTpuDeviceInfo()
+    info = GetGpuDeviceInfo()
     assert info["num_devices"] >= 1 and info["devices"]

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 
 import golden
-from gpu_video_codec_tpu.ops.filters import (
+from gpu_video_codec_jax.ops.filters import (
     chroma_edge_filter, luma_edge_filter, luma_segment_decisions,
 )
-from gpu_video_codec_tpu.ops.tables import get_beta, get_tc
+from gpu_video_codec_jax.ops.tables import get_beta, get_tc
 
 QPS = [0, 15, 16, 17, 18, 20, 27, 35, 43, 51, 60]
 

@@ -4,11 +4,11 @@ pallas (interpreter) and native (if available) must agree byte-for-byte."""
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
-from gpu_video_codec_tpu.runtime import native
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import FramePlanes, extend_plane
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.models.pipeline import DeblockPipeline
+from gpu_video_codec_jax.runtime import native
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import FramePlanes, extend_plane
 
 GEOMETRIES = [(16, 16), (24, 40), (48, 64), (88, 72), (8, 64), (64, 8)]
 

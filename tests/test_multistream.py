@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.parallel import MultiStreamDeblocker, make_mesh
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.parallel import MultiStreamDeblocker, make_mesh
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
 
 
 def _raw(rng, w, h):

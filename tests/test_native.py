@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.runtime import native
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.tiles import plane_to_tiles
-from gpu_video_codec_tpu.utils.yuv import FramePlanes, extend_plane
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.runtime import native
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.tiles import plane_to_tiles
+from gpu_video_codec_jax.utils.yuv import FramePlanes, extend_plane
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="no native toolchain")
 
@@ -173,7 +173,7 @@ def test_native_stub_build_never_dispatches_avx512(tmp_path):
     if shutil.which("g++") is None:
         pytest.skip("no g++")
     src = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "gpu_video_codec_tpu", "runtime", "src")
+        os.path.abspath(__file__))), "gpu_video_codec_jax", "runtime", "src")
     so = tmp_path / "libgvct_stub.so"
     subprocess.run(
         ["g++", "-O0", "-fPIC", "-fopenmp", "-std=c++17", "-msse4.1",

@@ -8,10 +8,10 @@ Uses a scaled-down stand-in (88x72 -> chroma 44x36 -> extended 52x44, both
 
 import numpy as np
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.models.pipeline import DeblockPipeline
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import FramePlanes, extend_plane
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.models.pipeline import DeblockPipeline
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import FramePlanes, extend_plane
 
 
 def _frame(rng, w, h):

@@ -5,10 +5,10 @@ steps (tiles never leaving the canonical layout) and Q9 geometries."""
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.models.resident import ResidentDeblocker
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import (
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.models.resident import ResidentDeblocker
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import (
     planes_from_yv12_bytes, yv12_bytes_from_planes,
 )
 
@@ -84,7 +84,7 @@ def test_streaming_packed_chain_matches_step_loop(rng):
     == n individual packed steps."""
     import jax
 
-    from gpu_video_codec_tpu.models.streaming import (
+    from gpu_video_codec_jax.models.streaming import (
         StreamingDeblocker, _deblock_yv12_packed_n,
     )
 

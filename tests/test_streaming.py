@@ -4,10 +4,10 @@ filtered, in order, with no cross-frame mixing."""
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-from gpu_video_codec_tpu.models.streaming import StreamingDeblocker
-from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-from gpu_video_codec_tpu.utils.yuv import (
+from gpu_video_codec_jax.models.golden import deblock_frame_golden
+from gpu_video_codec_jax.models.streaming import StreamingDeblocker
+from gpu_video_codec_jax.utils.bs import BoundaryStrength
+from gpu_video_codec_jax.utils.yuv import (
     FramePlanes,
     extend_plane,
     planes_from_yv12_bytes,
@@ -98,7 +98,7 @@ def test_update_boundary_strength_midstream(rng):
 
 def test_run_frames_wrapper(rng):
     """FramePlanes-in/FramePlanes-out convenience path."""
-    from gpu_video_codec_tpu.utils.yuv import extend_plane
+    from gpu_video_codec_jax.utils.yuv import extend_plane
 
     w, h = 64, 48
     frames = [
@@ -116,7 +116,7 @@ def test_run_frames_wrapper(rng):
     for f, o in zip(frames, outs):
         gold = deblock_frame_golden(f, bs, 35)
         # interiors must match (padding of `o` is freshly zero by construction)
-        from gpu_video_codec_tpu.utils.yuv import interior
+        from gpu_video_codec_jax.utils.yuv import interior
         for name in ("y", "u", "v"):
             ga = getattr(gold, name)
             oa = getattr(o, name)
@@ -127,9 +127,9 @@ def test_run_frames_wrapper(rng):
 def test_streaming_luma_only_pallas(rng):
     """Pallas packed path with luma_only: chroma passes through untouched,
     luma equals the golden luma-only filter."""
-    from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-    from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-    from gpu_video_codec_tpu.utils.yuv import (
+    from gpu_video_codec_jax.models.golden import deblock_frame_golden
+    from gpu_video_codec_jax.utils.bs import BoundaryStrength
+    from gpu_video_codec_jax.utils.yuv import (
         planes_from_yv12_bytes, yv12_bytes_from_planes,
     )
 
@@ -208,7 +208,7 @@ class TestPackedChromaFold:
 
     def _sd(self, monkeypatch, w, h, engine):
         monkeypatch.setenv("GVCT_PACKED_CHROMA", engine)
-        monkeypatch.setenv("GVCT_RELAYOUT", "mxu")  # fold dots on, off-TPU
+        monkeypatch.setenv("GVCT_RELAYOUT", "mxu")  # the fold rides the mxu engine
         return StreamingDeblocker(w, h, 35, backend="pallas")
 
     @pytest.mark.parametrize("geom", [(64, 48), (96, 72)])

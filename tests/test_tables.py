@@ -1,4 +1,4 @@
-from gpu_video_codec_tpu.ops.tables import BETA_TABLE, TC_TABLE, get_beta, get_tc
+from gpu_video_codec_jax.ops.tables import BETA_TABLE, TC_TABLE, get_beta, get_tc
 
 
 def test_table_lengths():

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from gpu_video_codec_tpu.utils.tiles import plane_to_tiles, tiles_to_plane
+from gpu_video_codec_jax.utils.tiles import plane_to_tiles, tiles_to_plane
 
 
 def test_roundtrip(rng):
@@ -41,7 +41,8 @@ def mxu_dtype(request):
 class TestMxuRelayout:
     """The MXU one-hot relayout engine (utils/tiles._plane_to_tiles_mxu)
     must be bit-identical to the reshape+transpose engine -- it is the
-    TPU fast path for every device graph's layout boundary."""
+    alternative (GVCT_RELAYOUT=mxu) for every device graph's layout
+    boundary."""
 
     @pytest.fixture(autouse=True)
     def _dtype(self, mxu_dtype, monkeypatch):
@@ -90,10 +91,10 @@ class TestMxuRelayout:
 
     def test_full_pipeline_bitexact_with_mxu_relayout(self, rng, monkeypatch):
         """Whole packed graph with the MXU relayout == golden oracle."""
-        from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-        from gpu_video_codec_tpu.models.streaming import StreamingDeblocker
-        from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-        from gpu_video_codec_tpu.utils.yuv import (
+        from gpu_video_codec_jax.models.golden import deblock_frame_golden
+        from gpu_video_codec_jax.models.streaming import StreamingDeblocker
+        from gpu_video_codec_jax.utils.bs import BoundaryStrength
+        from gpu_video_codec_jax.utils.yuv import (
             planes_from_yv12_bytes, yv12_bytes_from_planes,
         )
 
@@ -113,7 +114,7 @@ class TestInteriorFused:
     write-back into the relayout)."""
 
     def test_numpy_engine(self, rng):
-        from gpu_video_codec_tpu.utils.tiles import (
+        from gpu_video_codec_jax.utils.tiles import (
             interior_to_tiles, tiles_to_interior,
         )
 
@@ -127,7 +128,7 @@ class TestInteriorFused:
     def test_mxu_engine(self, rng, monkeypatch, mxu_dtype):
         import jax.numpy as jnp
 
-        from gpu_video_codec_tpu.utils.tiles import (
+        from gpu_video_codec_jax.utils.tiles import (
             interior_to_tiles, tiles_to_interior,
         )
 
@@ -146,7 +147,7 @@ class TestInteriorFused:
         on both dot dtypes; padding tiles must come out exactly zero."""
         import jax.numpy as jnp
 
-        from gpu_video_codec_tpu.utils.tiles import (
+        from gpu_video_codec_jax.utils.tiles import (
             interior_to_tiles, tiles_to_interior,
         )
 
@@ -167,7 +168,7 @@ class TestInteriorFused:
         the correct interior (padding columns are dropped by the inverse)."""
         import jax.numpy as jnp
 
-        from gpu_video_codec_tpu.utils.tiles import tiles_to_interior
+        from gpu_video_codec_jax.utils.tiles import tiles_to_interior
 
         h, w, p = 16, 24, 4
         ext = rng.integers(0, 256, (h + 2 * p, w + 2 * p), dtype=np.uint8)
@@ -192,7 +193,7 @@ class TestSplitRelayout:
     def test_roundtrip_matches_transpose(self, rng):
         import jax.numpy as jnp
 
-        from gpu_video_codec_tpu.utils.tiles import (
+        from gpu_video_codec_jax.utils.tiles import (
             interior_to_tiles, tiles_to_interior,
         )
 
@@ -206,7 +207,7 @@ class TestSplitRelayout:
     def test_grid_padded_and_batched(self, rng):
         import jax.numpy as jnp
 
-        from gpu_video_codec_tpu.utils.tiles import (
+        from gpu_video_codec_jax.utils.tiles import (
             interior_to_tiles, tiles_to_interior,
         )
 
@@ -224,10 +225,10 @@ class TestSplitRelayout:
 
     def test_full_pipeline_bitexact_with_split(self, rng, monkeypatch):
         """Whole packed pallas graph with the split engine == golden."""
-        from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-        from gpu_video_codec_tpu.models.streaming import StreamingDeblocker
-        from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-        from gpu_video_codec_tpu.utils.yuv import (
+        from gpu_video_codec_jax.models.golden import deblock_frame_golden
+        from gpu_video_codec_jax.models.streaming import StreamingDeblocker
+        from gpu_video_codec_jax.utils.bs import BoundaryStrength
+        from gpu_video_codec_jax.utils.yuv import (
             planes_from_yv12_bytes, yv12_bytes_from_planes,
         )
 
@@ -255,7 +256,7 @@ class TestFactoredRelayout:
     def test_roundtrip_matches_transpose(self, rng):
         import jax.numpy as jnp
 
-        from gpu_video_codec_tpu.utils.tiles import (
+        from gpu_video_codec_jax.utils.tiles import (
             interior_to_tiles, tiles_to_interior,
         )
 
@@ -271,7 +272,7 @@ class TestFactoredRelayout:
         verify it against the transpose engine at a wide, short plane."""
         import jax.numpy as jnp
 
-        from gpu_video_codec_tpu.utils.tiles import (
+        from gpu_video_codec_jax.utils.tiles import (
             _fact_enabled, interior_to_tiles, tiles_to_interior,
         )
 
@@ -287,7 +288,7 @@ class TestFactoredRelayout:
     def test_grid_padded_and_batched(self, rng):
         import jax.numpy as jnp
 
-        from gpu_video_codec_tpu.utils.tiles import (
+        from gpu_video_codec_jax.utils.tiles import (
             interior_to_tiles, tiles_to_interior,
         )
 
@@ -305,10 +306,10 @@ class TestFactoredRelayout:
 
     def test_full_pipeline_bitexact_with_factored(self, rng):
         """Whole packed pallas graph with the factored engine == golden."""
-        from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-        from gpu_video_codec_tpu.models.streaming import StreamingDeblocker
-        from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-        from gpu_video_codec_tpu.utils.yuv import (
+        from gpu_video_codec_jax.models.golden import deblock_frame_golden
+        from gpu_video_codec_jax.models.streaming import StreamingDeblocker
+        from gpu_video_codec_jax.utils.bs import BoundaryStrength
+        from gpu_video_codec_jax.utils.yuv import (
             planes_from_yv12_bytes, yv12_bytes_from_planes,
         )
 

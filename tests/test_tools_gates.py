@@ -1,113 +1,12 @@
-"""Process-safety gates around the wedge-prone tooling (round-4 verdict
-items 2/3): the int16 probe's toolchain gate and the capture runner's
-artifact plumbing.  Pure-CPU, no jax import beyond metadata."""
-
-import json
-import os
-
-import pytest
-
-from tools.int16_probe import STATE_PATH, gate, record_state, toolchain_versions
-from tools.tpu_capture import _atomic_write, _parse_json_tail
-
-
-def test_int16_gate_skips_on_unchanged_toolchain(tmp_path):
-    state = tmp_path / "state.json"
-    record_state({"int16_on_tpu": "compile-hang"}, 4, str(state))
-    skip = gate(str(state))
-    assert skip is not None
-    assert skip["int16_on_tpu"] == "skipped-toolchain-unchanged"
-    assert "round 4" in skip["detail"] and "compile-hang" in skip["detail"]
-
-
-def test_int16_gate_probes_on_changed_toolchain(tmp_path):
-    state = tmp_path / "state.json"
-    record_state({"int16_on_tpu": "compile-hang"}, 4, str(state))
-    data = json.loads(state.read_text())
-    data["versions"]["libtpu"] = "0.0.1-older"
-    state.write_text(json.dumps(data))
-    assert gate(str(state)) is None  # version changed: probe is warranted
-
-
-def test_int16_gate_probes_when_no_state(tmp_path):
-    assert gate(str(tmp_path / "missing.json")) is None
-
-
-def test_int16_state_file_is_seeded():
-    """The committed state file must exist; if it matches the CURRENT
-    toolchain the gate must fire (skip re-probing).  A version MISMATCH is
-    the gate working as designed -- the probe is pending on the new
-    toolchain -- not a suite failure (the only 'fixes' would be running the
-    wedge-prone probe mid-suite or faking the state file)."""
-    assert os.path.exists(STATE_PATH), "bench/INT16_PROBE_STATE.json missing"
-    with open(STATE_PATH) as f:
-        state = json.load(f)
-    if state["versions"] != toolchain_versions():
-        pytest.skip("toolchain changed since the last probe: gate correctly "
-                    "re-arms (run tools.int16_probe only after the round's "
-                    "TPU capture set is banked)")
-    assert gate() is not None
-
-
-def test_capture_parse_json_tail():
-    assert _parse_json_tail('noise\n{"a": 1}\n') == {"a": 1}
-    assert _parse_json_tail('x\n{\n "a": {\n  "b": 2\n }\n}\n') == {"a": {"b": 2}}
-    assert _parse_json_tail("[1, 2]\ntrailing noise\n") is None  # not the tail
-    assert _parse_json_tail("no json at all") is None
-
-
-def test_capture_atomic_write(tmp_path):
-    p = tmp_path / "out.json"
-    _atomic_write(str(p), {"x": 1})
-    assert json.loads(p.read_text()) == {"x": 1}
-    assert not os.path.exists(str(p) + ".tmp")
-    _atomic_write(str(p), "raw text")
-    assert p.read_text() == "raw text"
+"""Experiment harnesses under tools/ that stay importable and correct."""
 
 
 def test_chromafold_formulation_bitexact(monkeypatch):
-    """The packed-chroma fold experiment (round-4 verdict item 7) must stay
-    bit-equal to the production retile path: forward tiles, full layout
-    round-trip, and identity on the region (tiny geometry; the 1080p race
-    runs on hardware via tools/tpu_capture.py)."""
-    monkeypatch.setenv("GVCT_RELAYOUT", "mxu")  # engines on, off-TPU
+    """The packed-chroma fold experiment must stay bit-equal to the
+    production retile path: forward tiles, full layout round-trip, and
+    identity on the region (tiny geometry)."""
+    monkeypatch.setenv("GVCT_RELAYOUT", "mxu")  # the fold rides the mxu engine
     from tools.chromafold_exp import check
 
     r = check(geometries=((64, 48),))
     assert r["ok"], r
-
-
-def test_capture_fresh_predicate():
-    """Degraded-but-rc-0 child records must not bank as fresh (round-5
-    review): bench.py's stale watchdog record, tpu_engine_check's all-skip
-    record, chromafold/profile error shapes."""
-    from tools.tpu_capture import _fresh
-
-    assert not _fresh("headline", {"value": None, "stale": True,
-                                   "last_measured": {"value": 15600}})
-    assert _fresh("headline", {"value": 15600.0, "vs_baseline": 21.0})
-    assert not _fresh("engine_gate", {"skipped": True, "configs": {}})
-    assert not _fresh("engine_gate", {"configs": {}})  # malformed: no field
-    assert _fresh("engine_gate", {"skipped": False, "ok": True})
-    assert not _fresh("chromafold_race",
-                      {"bit_exact_vs_production": True,
-                       "error": "no device trace lanes (not on TPU?)"})
-    assert _fresh("chromafold_race", {"retile_us": 140.0, "fold_us": 139.0})
-    assert not _fresh("profile_1080p", {"geometry": "1920x1080",
-                                        "packed": {"device_mpix_s": None}})
-    assert _fresh("profile_1080p", {"geometry": "1920x1080",
-                                    "packed": {"device_mpix_s": 15600.0}})
-    assert not _fresh("headline", "not a dict")
-
-
-def test_capture_suite_lock_claim(tmp_path, monkeypatch):
-    """The capture must never delete a suite.lock another process created:
-    claiming is O_EXCL, and a failed claim aborts the capture."""
-    import tools.tpu_capture as tc
-
-    lock = tmp_path / "suite.lock"
-    monkeypatch.setattr(tc, "SUITE_LOCK", str(lock))
-    assert tc._claim_suite_lock()          # free -> claimed
-    assert not tc._claim_suite_lock()      # held -> refused
-    os.remove(str(lock))
-    assert tc._claim_suite_lock()

@@ -1,7 +1,7 @@
 """Experiment: factorized relayout dots (middle-dim identity contraction).
 
 The full-width one-hot perm dot does O(Wext) MACs per output pixel
-(4.28G MACs at 1080p luma, ~23.5 us measured vs ~11 us MXU ideal).  But
+(4.28G MACs at 1080p luma).  But
 once the plane is padded to the extended grid width, the intra-row
 de-interleave IS a pure transpose of the (t, c) split:
 
@@ -18,11 +18,9 @@ zero padding and grid-tail tiles still cost nothing.
 Risk probed here: XLA could materialize an lhs transpose to put the
 contraction dim last, reintroducing the byte shuffle.  Race on device.
 
-OUTCOME (round 3, real v5e): bit-exact; dot time drops 23.4 -> 6.1 us fwd /
-24 -> 3.1 us inv, but XLA DOES materialize the layout copies (the
-contraction dim must become minor), which outweigh the MAC saving at 1080p
-(in-graph 148 vs 141.3 us) and win at 4K (563 vs 651).  Shipped as
-utils/tiles.py's FACTORED engine with the auto policy: grid width >= 4096.
+Outcome: bit-exact, and XLA does materialize layout copies around the dot
+(the contraction dim must become minor).  Shipped as utils/tiles.py's
+FACTORED engine with the auto policy: grid width >= 4096.
 """
 
 from __future__ import annotations
@@ -37,10 +35,10 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import jax.numpy as jnp
 
-from gpu_video_codec_tpu.utils.tiles import (
+from gpu_video_codec_jax.utils.tiles import (
     interior_to_tiles, tiles_to_interior, tile_perm_device,
 )
-from gpu_video_codec_tpu.utils.tracing import profiled_device_us
+from gpu_video_codec_jax.utils.tracing import profiled_device_us
 
 W, H, PAD = 1920, 1080, 4
 BYG, BXG = 136, 256

@@ -1,22 +1,15 @@
-"""Experiment record: residual row-block reorder formulations (round 3).
+"""Experiment: residual row-block reorder formulations.
 
-Candidates raced for the (Byg, 8, 8, Bxg) <-> (8, 8, Byg, Bxg) residual
-permutation around the MXU relayout dots:
+Times the (Byg, 8, 8, Bxg) <-> (8, 8, Byg, Bxg) residual permutation around
+the mxu relayout dots (utils/tiles.py):
 
-  xla_u8       jnp.transpose on uint8 -- ~8.6 us at 1080p luma once the
-               u8 convert is held in the dot epilogue (the shipped form).
+  xla_u8       jnp.transpose on uint8 (the shipped form, with the u8
+               convert held in the dot epilogue).
   xla_i32      transpose of the raw int32 dot output with the convert fused
-               after -- 16.5 us (4x the bytes).  This motivated the
-               convert-placement fix in utils/tiles.py.
-  dma          64 strided HBM->HBM `pltpu.make_async_copy` calls -- DOES NOT
-               COMPILE: Mosaic requires slices of tiled memref dims to be
-               tile-aligned (`Slice shape along dimension 2 must be aligned
-               to tiling (8)`); the 8-wide r/c dims sit second-minor in
-               every view that avoids a retiling reshape.  An OOB variant
-               also wedged the remote TPU until backend restart.
+               after (4x the bytes) -- why utils/tiles.py places the convert
+               before the reorder.
 
-This file intentionally no longer executes the DMA variant; it re-times the
-XLA forms so the numbers above stay reproducible.
+    python -m tools.reorder_exp [--byg 136] [--bxg 256]   # device time
 """
 
 from __future__ import annotations
@@ -31,7 +24,7 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import jax.numpy as jnp
 
-from gpu_video_codec_tpu.utils.tracing import profiled_device_us
+from gpu_video_codec_jax.utils.tracing import profiled_device_us
 
 
 def main(byg=136, bxg=256, iters=30):

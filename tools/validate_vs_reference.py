@@ -182,15 +182,15 @@ def fuzz(ref_dir: str, n_cases: int, seed: int = 0,
     """
     import numpy as np
 
-    from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-    from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-    from gpu_video_codec_tpu.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
+    from gpu_video_codec_jax.models.golden import deblock_frame_golden
+    from gpu_video_codec_jax.utils.bs import BoundaryStrength
+    from gpu_video_codec_jax.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
 
     if backend == "native":
         # fuzz the native SIMD backend (whatever tier cpuid selects --
         # AVX-512 on this host) DIRECTLY against the compiled reference:
         # two independent implementations, no shared code
-        from gpu_video_codec_tpu.runtime import native as native_rt
+        from gpu_video_codec_jax.runtime import native as native_rt
 
         def model(frame, bs, qp):
             return native_rt.deblock_frame_native(frame, bs, qp)
@@ -267,9 +267,9 @@ def fullscale(ref_dir: str, w: int = 1920, h: int = 1080, qp: int = 35) -> int:
     verifies it at production scale) and to our golden model."""
     import numpy as np
 
-    from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-    from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-    from gpu_video_codec_tpu.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
+    from gpu_video_codec_jax.models.golden import deblock_frame_golden
+    from gpu_video_codec_jax.utils.bs import BoundaryStrength
+    from gpu_video_codec_jax.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
 
     rng = np.random.default_rng(1080)
     yy = ((np.arange(h)[:, None] * 3 + np.arange(w)[None, :] * 2
@@ -356,9 +356,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from gpu_video_codec_tpu.models.golden import deblock_frame_golden
-    from gpu_video_codec_tpu.utils.bs import BoundaryStrength
-    from gpu_video_codec_tpu.utils.yuv import read_yv12, yv12_bytes_from_planes
+    from gpu_video_codec_jax.models.golden import deblock_frame_golden
+    from gpu_video_codec_jax.utils.bs import BoundaryStrength
+    from gpu_video_codec_jax.utils.yuv import read_yv12, yv12_bytes_from_planes
 
     failures = 0
     with tempfile.TemporaryDirectory() as td:
